@@ -1,8 +1,8 @@
-"""ddcmd_tpu — a TPU-native classical molecular dynamics framework.
+"""ddcmd_tpu — classical molecular dynamics in JAX.
 
 A from-scratch re-design of LLNL/ddcMD's capability set
-(https://github.com/LLNL/ddcMD, mounted read-only at /root/reference)
-for JAX/XLA/Pallas on TPU:
+(https://github.com/LLNL/ddcMD) for JAX/XLA with Pallas kernels on
+NVIDIA GPUs (CPU for tests):
 
   * object-deck config compatibility (objects/)
   * fixed-capacity SoA particle state as a pytree (core/)
@@ -20,11 +20,10 @@ import jax as _jax
 
 # Every matmul in this package is geometry or physics: positions through
 # box transforms (min-image, fractional halos, NPT rescales), constraint
-# selection matrices, kinetic stress.  XLA:TPU's DEFAULT f32 matmul runs
-# bf16 passes, which rounds positions -- enough to flip a periodic image
-# near a boundary or drift constraint lengths by ~0.4%.  Hardware-probed:
-# scripts/probe_colkernel_tpu.py reproduced a +4.7% energy error from
-# default-precision dots that interpret-mode parity could never see.
-# Force full-f32 globally; hot paths that can prove bf16 is safe must
-# opt in explicitly (none currently do).
+# selection matrices, kinetic stress, the cellblock engine's distance
+# blocks.  At default precision XLA:GPU may run float32 matmuls in TF32
+# on the tensor cores (10-bit mantissa), which rounds positions --
+# enough to flip a periodic image near a boundary or drift constraint
+# lengths.  Force full-f32 globally; hot paths that can prove reduced
+# precision is safe must opt in explicitly (none currently do).
 _jax.config.update("jax_default_matmul_precision", "highest")

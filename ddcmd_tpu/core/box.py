@@ -1,6 +1,6 @@
 """Simulation box: h-matrix, periodic wrap, minimum image.
 
-TPU-native replacement for the reference's box.c / preduce.c
+Replacement for the reference's box.c / preduce.c
 (/root/reference/src/box.c:50-513, /root/reference/src/preduce.c:42-45).
 Coordinates follow the reference convention: particles live in the box
 *centered on the origin*, components in [-L/2, L/2) for an orthorhombic
@@ -17,15 +17,14 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree as struct
 
 
 def inv3x3(h):
     """Analytic 3x3 inverse (adjugate/det).
 
-    TPU's LuDecomposition has no f64 lowering, so jnp.linalg.inv breaks
-    f64 triclinic runs on hardware; the closed form is also cheaper and
-    dtype-agnostic."""
+    The closed form is cheaper than jnp.linalg.inv's LU path, batches
+    without a solver call, and is dtype-agnostic."""
     a, b, c = h[:, 0], h[:, 1], h[:, 2]
     cbc = jnp.cross(b, c)
     cca = jnp.cross(c, a)

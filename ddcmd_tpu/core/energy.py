@@ -9,7 +9,7 @@ masked reductions (psum across a device mesh happens one level up).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree as struct
 
 from ..objects import units as U
 
@@ -52,6 +52,6 @@ def kinetic_terms(v, mass, fmask):
     Returns (rk, tion) where tion[a,b] = sum_i m_i v_ia v_ib.
     """
     mv = (mass * fmask)[:, None] * v          # (N,3)
-    tion = mv.T @ v                            # (3,3) MXU-friendly
+    tion = mv.T @ v                            # (3,3) as one matmul
     rk = 0.5 * jnp.trace(tion)
     return rk, tion

@@ -3,7 +3,7 @@
 Reference contract: every particle belongs to one GROUP whose
 `velocityUpdate(FRONT|BACK, k, ...)` performs the half-kick
 (/root/reference/src/group.h:9-80).  The reference dispatches through a
-per-particle function pointer; on TPU we instead note that the whole
+per-particle function pointer; here we instead note that the whole
 working family of velocity updates is one affine form
 
     v' = vcm + a*(v - vcm) + c*F/m + d*g,          (FRONT)
@@ -21,7 +21,7 @@ with per-GROUP coefficients (see langevin_velocityUpdate,
     BERENDSEN:     a = sqrt(1 + dt/tau (Teq/T - 1)) applied globally
 
 so the per-particle dispatch becomes a gather of coefficient vectors --
-one fused VPU pass, no lax.switch, no scatter.  Groups whose update
+one fused elementwise pass, no lax.switch, no scatter.  Groups whose update
 cannot be cast this way get a post-hook (applied masked on their
 particles).
 """
@@ -417,10 +417,10 @@ def velocity_update(mode: str, state_v, state_f, state_mass, group_ids,
     import os as _os
 
     if _os.environ.get("DDCMD_RBG_NOISE", "0") == "1":
-        # hardware-RNG thermostat noise (jax 'rbg' impl) -- a measured
-        # NEGATIVE on the bilayer (r5 A/B: 47.2 vs 52.0 steps/s; the
-        # per-call key re-wrap + rbg lowering lose to the fused threefry
-        # on this backend).  Kept as an A/B switch only; default OFF.
+        # hardware-RNG thermostat noise (jax 'rbg' impl): the per-call
+        # key re-wrap + rbg lowering lost to the fused threefry on the
+        # backend it was tried on; not measured on the GPU.  Kept as an
+        # A/B switch only; default OFF.
         kd = jax.random.key_data(key) if jnp.issubdtype(
             key.dtype, jax.dtypes.prng_key) else key
         rkey = jax.random.wrap_key_data(

@@ -86,8 +86,8 @@ def make_molecular_virial_fn(mol: MoleculeClass | None, dtype=jnp.float32):
     Returns fn(state, box, virial) -> corrected (3,3) virial.
     Single-atom molecules need no correction -- they are FILTERED OUT
     up front (a solvated bilayer pads ~45k single-bead waters to
-    max_atoms otherwise: ~1.2 M gathered rows per step, several ms on
-    TPU for terms that are identically zero).  When the remaining
+    max_atoms otherwise: ~1.2 M gathered rows per step for terms that
+    are identically zero).  When the remaining
     multi-bead molecules' rows are one contiguous block (builder decks),
     the gather collapses to a static slice.
     """

@@ -1,6 +1,6 @@
 """Particle state: fixed-capacity SoA pytree.
 
-TPU-native replacement for the reference's STATE/COLLECTION
+Replacement for the reference's STATE/COLLECTION
 (/root/reference/src/state.h:7-27, /root/reference/src/collection.h:19-35).
 The reference stores dynamic-size double arrays and calls resize(); under
 XLA every shape is static, so State is a *fixed-capacity* padded pytree:
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree as struct
 
 
 def pad_to(n: int, multiple: int = 128) -> int:

@@ -8,7 +8,7 @@ Canonical step (reference nglf, /root/reference/src/nglf.c:67-112):
   4. GROUP velocityUpdate(BACK, 0.5 dt)                 [half kick]
   5. kinetic_terms
 
-On TPU the whole step is ONE jitted pure function over the (State, Box)
+The whole step is ONE jitted pure function over the (State, Box)
 pytree; the neighbor list is an explicit argument rebuilt at the deck's
 `ddc.updateRate` cadence / displacement trigger by the driver
 (simulateMaster analog, run/simulate.py).
@@ -29,7 +29,7 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree as struct
 
 from ..core.energy import EnergyInfo, kinetic_terms
 from ..core.groups import velocity_update

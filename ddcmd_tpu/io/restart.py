@@ -143,7 +143,7 @@ def write_checkpoint(sim, run_dir: str = ".", update_symlink: bool = True,
                     + " Angstrom/fs ; }\n")
         f.write(f"collection COLLECTION {{ mode={mode}; size={n};"
                 f" files={os.path.basename(snapdir)}/atoms#;}}\n")
-        # RNG continuity: the PRNG key is the TPU-native analog of the
+        # RNG continuity: the PRNG key is the JAX analog of the
         # reference's per-particle random-stream serialization (lcg64.c
         # bwrite); restoring it makes restarted thermostat noise identical
         key = np.asarray(getattr(sim, "key", np.zeros(2, np.uint32)))

@@ -153,9 +153,20 @@ collection COLLECTION {{ mode=VARRECORDASCII; size={n}; files=atoms#; }}
 
 
 def martini_water(out_dir, *, n=6173, density_nm3=7.47, T=310.0,
-                  dt_fs=20.0, seed=2):
+                  dt_fs=20.0, seed=2, waterbox=False):
     """Martini coarse-grained water at the waterbox state point; MMFF
-    objects inline (the waterbox martini.data schema, bioMMFF.c)."""
+    objects inline (the waterbox martini.data schema, bioMMFF.c).
+
+    waterbox=True writes the reference's examples/waterbox deck instead:
+    6,173 beads in a 93.858 Angstrom cube at 310 K and 1 bar
+    (NGLFCONSTRAINT with beta=3e-4/bar, tauBarostat=1 ps), cutoff 11
+    Angstrom, epsilon_r=15, dt=20 fs, LANGEVIN group `group` plus a FREE
+    group `free`, an lcg64 RANDOM, W and WF residues in martini.data, and
+    the start configuration (zero velocities) under snapshot.mem/ with a
+    restart object file -- load it with
+    load_db([object.data], snapshot.mem/restart, out_dir)."""
+    if waterbox:
+        return _reference_waterbox(out_dir, seed)
     L_nm = (n / density_nm3) ** (1 / 3)
     L = L_nm * 10.0
     r, rng = _lattice(n, L, 0.4, seed)
@@ -196,6 +207,77 @@ P4_P4 LJPARMS { atomtypeI=P4; indexI=0; atomtypeJ=P4; indexJ=0;
         f.write(deck)
     with open(os.path.join(out_dir, "martini.data"), "w") as f:
         f.write(mmff)
+    return out_dir
+
+
+_WATERBOX_DECK = """
+simulate SIMULATE { type=MD; system=system; integrator=nglf; dt=20;
+  maxloop=1000000; printrate=1; snapshotrate=0; checkpointrate=100000;
+  ddc=ddc; printinfo=printinfo; }
+ddc DDC { updateRate=20; }
+martini POTENTIAL { type=MARTINI; parmfile=martini.data;
+  cutoff=11 Angstrom; rcoulomb=11 Angstrom; epsilon_r=15; epsilon_rf=-1; }
+nglf INTEGRATOR { type=NGLFCONSTRAINT; T=310 K; P0=1.0 bar;
+  beta=3.0e-4/bar; tauBarostat=1 ps; }
+system SYSTEM { type=NORMAL; potential=martini; neighbor=nbr;
+  groups=group free; random=lcg64; box=box; collection=collection;
+  species=WxW; }
+group GROUP { type=LANGEVIN; Teq=310 K; tau=1 ps; }
+free GROUP { type=FREE; }
+lcg64 RANDOM { type=LCG64; seed=385212586; randomizeSeed=1; }
+WxW SPECIES { type=ATOM; mass=72.0 M_p; charge=0; }
+box BOX { type=ORTHORHOMBIC; pbc=7; }
+nbr NEIGHBOR { type=NORMAL; deltaR=4.0 Angstrom; }
+printinfo PRINTINFO { ENERGY=kJ/mol; TEMPERATURE=K; PRESSURE=bar;
+  VOLUME=Ang^3; TIME=fs; }
+collection COLLECTION { mode=VARRECORDASCII; size=6173;
+  files=snapshot.mem/atoms#; }
+"""
+
+_WATERBOX_MMFF = """
+martini MMFF {
+  resiParms= W WF ;
+  atomTypeList= P4 BP4 ;
+  ljParms= P4_P4 P4_BP4 BP4_BP4 ;
+}
+P4 MASSPARMS { atomType=P4; atomTypeID=0; mass=72.0 M_p ; }
+BP4 MASSPARMS { atomType=BP4; atomTypeID=1; mass=72.0 M_p ; }
+W RESIPARMS { resID=1; resType=0; resName=W; charge=0.0;
+  groupList=W_g0; centerAtom=0; }
+W_g0 GROUPPARMS { groupID=0; atomList= W_W ; }
+W_W ATOMPARMS { atomID=0; atomName=W; atomType=P4; atomTypeID=0;
+  charge=0.0; mass=72.0 M_p ; }
+WF RESIPARMS { resID=2; resType=0; resName=WF; charge=0.0;
+  groupList=WF_g0; centerAtom=0; }
+WF_g0 GROUPPARMS { groupID=0; atomList= WF_WF ; }
+WF_WF ATOMPARMS { atomID=0; atomName=WF; atomType=BP4; atomTypeID=1;
+  charge=0.0; mass=72.0 M_p ; }
+P4_P4 LJPARMS { atomtypeI=P4; indexI=0; atomtypeJ=P4; indexJ=0;
+  sigma=0.47 nm; eps=5.0 kJ*mol^-1; }
+P4_BP4 LJPARMS { atomtypeI=BP4; indexI=1; atomtypeJ=P4; indexJ=0;
+  sigma=0.57 nm; eps=5.6 kJ*mol^-1; }
+BP4_BP4 LJPARMS { atomtypeI=BP4; indexI=1; atomtypeJ=BP4; indexJ=1;
+  sigma=0.47 nm; eps=5.0 kJ*mol^-1; }
+"""
+
+
+def _reference_waterbox(out_dir, seed):
+    n, L = 6173, 93.858
+    r, _ = _lattice(n, L, 0.4, seed)
+    snap = os.path.join(out_dir, "snapshot.mem")
+    os.makedirs(snap, exist_ok=True)
+    write_atoms(os.path.join(snap, "atoms#000000"), r, np.zeros((n, 3)),
+                ["WxW"] * n, ["group"] * n, np.diag([L] * 3))
+    hstr = " ".join("%.6f" % x for x in np.diag([L] * 3).reshape(-1))
+    with open(os.path.join(snap, "restart"), "w") as f:
+        f.write("simulate SIMULATE { loop=0; time=0.000000 ;}\n"
+                f"box BOX {{ h= {hstr} ; }}\n"
+                f"collection COLLECTION {{ mode=VARRECORDASCII; size={n};"
+                " files=snapshot.mem/atoms#;}\n")
+    with open(os.path.join(out_dir, "object.data"), "w") as f:
+        f.write(_WATERBOX_DECK)
+    with open(os.path.join(out_dir, "martini.data"), "w") as f:
+        f.write(_WATERBOX_MMFF)
     return out_dir
 
 
@@ -415,6 +497,30 @@ WatM MOLECULE {{ ownershipSpecies=WxW; species= WxW ; }}
     with open(os.path.join(out_dir, "bilayer.data"), "w") as f:
         f.write(_dppc_mmff())
     return out_dir
+
+
+def equilibrated_bilayer(out_dir, *, nx=48, steps=3000, dt_fs=5.0,
+                         **sim_kw):
+    """Build the nx x nx DPPC bilayer in out_dir and settle its start at a
+    small dt: under NPT the synthetic start compresses ~29% in volume
+    within ~10 ps, which at the production dt (20 fs) can catapult beads
+    through the rollback ladder.  Runs `steps` steps at dt_fs on a copy
+    of the deck (Simulation keyword arguments in sim_kw) and checkpoints
+    into out_dir.  Returns (restart path, the Simulation that ran)."""
+    from ..io.restart import write_checkpoint
+    from ..run.simulate import Simulation
+
+    martini_bilayer(out_dir, nx=nx, ny=nx)
+    eq_dir = os.path.join(out_dir, "equilibration")
+    os.makedirs(eq_dir, exist_ok=True)
+    martini_bilayer(eq_dir, nx=nx, ny=nx, dt_fs=dt_fs)
+    db, base = load(eq_dir)
+    sim = Simulation(db, base, run_dir=out_dir, **sim_kw)
+    sim.run(steps, print_fn=lambda s: None,
+            max_steps_per_dispatch=min(500, steps))
+    # the restart's relative files= path resolves against out_dir
+    write_checkpoint(sim, out_dir)
+    return os.path.join(out_dir, "restart"), sim
 
 
 def load(out_dir, restart=None):

@@ -1,6 +1,6 @@
 /* recio: native record codec for pio-style collection files.
  *
- * TPU-native replacement for the runtime role of LLNL simutil's pio +
+ * Replacement for the runtime role of LLNL simutil's pio +
  * pioVariableRecordHelper (sources absent from the reference mount;
  * interface reconstructed from call sites, see SURVEY.md L0).  The hot
  * ASCII paths -- parsing atoms# shards into SoA arrays and formatting

@@ -1,4 +1,4 @@
-"""Cell list + padded neighbor list, TPU-native.
+"""Cell list + padded neighbor list on the device.
 
 Replaces the reference's GEOM cell grid + FAT/SKINNY neighbor tables
 (/root/reference/src/geom.h:24-110, /root/reference/src/neighbor.h:11-41)
@@ -15,8 +15,8 @@ static-shape form XLA wants:
     checkbounds pattern);
   * the (N, K) list is FULL (each pair appears from both sides), so
     force accumulation is a pure gather+sum -- no scatter on the hot
-    path (Newton's 3rd law costs 2x FLOPs but removes all atomics,
-    the right trade on TPU).
+    path (Newton's 3rd law costs 2x FLOPs but removes all atomics and
+    makes the sums deterministic).
 
 Rebuild cadence is driven by the caller (deck `ddc.updateRate` /
 displacement trigger, /root/reference/src/ddcUpdateAll.c:48-71).
@@ -196,9 +196,9 @@ def build_neighbor_list(r, fmask, box_lengths, grid: CellGrid, row_mask=None,
 
     # distances (min image; orthorhombic lengths or triclinic h).
     # Orthorhombic boxes compute PER COMPONENT: a materialized
-    # (N, C, 3) intermediate stores with minor-dim tiling T(8,128) on
-    # TPU -- the 3-wide lane pads 42x, which at all-atom C ~ 10^4 is a
-    # multi-GB allocation (observed OOM on the c36 fixture, r5)
+    # (N, C, 3) intermediate keeps a 3-wide minor dim, which at
+    # all-atom C ~ 10^4 pads into a multi-GB allocation on tiled
+    # layouts (observed OOM on the c36 fixture)
     r_ext = jnp.concatenate([r, jnp.zeros((1, 3), dtype=r.dtype)], axis=0)
     if np.ndim(box_lengths) == 1:
         L = jnp.asarray(box_lengths, r.dtype)

@@ -3,7 +3,7 @@
 The reference (ddcMD) uses internal units of bohr/Rydberg/fs/e
 (/root/reference/src/ddcMD.c:42-73) and external units of
 Angstrom/amu/fs/e/K.  Those were chosen for a C code doing all math in
-f64.  On TPU we compute in f32, so we instead pick the "GROMACS-natural"
+f64.  Here the hot path computes in f32, so we instead pick the "GROMACS-natural"
 internal system, in which Martini/CHARMM parameters are O(1) and the
 equations of motion need no conversion constants:
 

@@ -1,7 +1,7 @@
-"""Cell-blocked pair engine: the TPU-native hot path.
+"""Cell-blocked pair engine: XLA's dense pair path.
 
-Replaces per-pair gathers (pathological on TPU) with dense cell-block
-math that rides the MXU:
+Replaces per-pair gathers with dense cell-block math (batched matmuls
+at Precision.HIGHEST):
 
   * at REBUILD (deck ddc.updateRate cadence): bin particles into a
     static cell grid (edge >= rcut+skin), argsort into slot order, and
@@ -11,10 +11,10 @@ math that rides the MXU:
   * per STEP: gather positions once into (ncell, cap, 3) slot layout,
     pull each cell's 27-stencil block (pure block-take), and evaluate
     ALL slot pairs per cell:
-        |p - q|^2 = |p|^2 + |q|^2 - 2 p.q      (batched matmul, MXU)
+        |p - q|^2 = |p|^2 + |q|^2 - 2 p.q      (batched matmul)
         forces f_i = -sum_j c_ij (p_i - q_j)
-              = -p_i sum_j c_ij + c @ Q        (batched matmul, MXU)
-    with masking for empty slots / self / cutoff on the VPU.
+              = -p_i sum_j c_ij + c @ Q        (batched matmul)
+    with elementwise masking for empty slots / self / cutoff.
   * minimum image: per (cell, stencil-direction) integer wrap counts,
     precomputed once per grid -- q is shifted by wrap * L, which IS the
     nearest image for every pair within the cutoff because the cell
@@ -295,8 +295,9 @@ def cellpair_eval(r, q, tidx, perm, box_geom, grid: CellBlockGrid, tables,
     Q = Q + shift[:, :, None, :]
 
     # re-center every block on its home cell: |p|^2 + |q|^2 - 2 p.q is a
-    # catastrophic cancellation for box-scale coordinates (the TPU MXU's
-    # bf16 passes make it fatal); cell-relative coordinates bound the
+    # catastrophic cancellation for box-scale coordinates (reduced-
+    # precision matmul passes make it fatal); cell-relative coordinates
+    # bound the
     # magnitudes at ~1.5 cell edges.  Forces/virial are translation
     # invariant, so relative coordinates flow through everything below.
     P = P - centers[:, None, :]
@@ -320,7 +321,7 @@ def cellpair_eval(r, q, tidx, perm, box_geom, grid: CellBlockGrid, tables,
     p2 = jnp.sum(P * P, axis=-1)                       # (C,c)
     q2 = jnp.sum(Q * Q, axis=-1)                       # (C,Sc)
     pq = jnp.einsum("ncd,nsd->ncs", P, Q, preferred_element_type=dt,
-                    precision=jax.lax.Precision.HIGHEST)   # MXU, full f32
+                    precision=jax.lax.Precision.HIGHEST)   # full f32
     d2 = p2[:, :, None] + q2[:, None, :] - 2.0 * pq    # (C,c,Sc)
 
     mask = (Pv[:, :, None] & Qv[:, None, :]
@@ -361,7 +362,7 @@ def cellpair_eval(r, q, tidx, perm, box_geom, grid: CellBlockGrid, tables,
     # f_i = -sum_j coef_ij (p_i - q_j) = -p_i*csum + coef @ Q
     F = -P * csum[:, :, None] + jnp.einsum(
         "ncs,nsd->ncd", coef, Q, preferred_element_type=dt,
-        precision=jax.lax.Precision.HIGHEST)               # MXU, full f32
+        precision=jax.lax.Precision.HIGHEST)               # full f32
 
     pe_slot = 0.5 * jnp.sum(e_pair, axis=-1)           # (C,c)
 

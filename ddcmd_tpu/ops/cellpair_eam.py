@@ -6,7 +6,7 @@ Pass 1 accumulates densities rho_i and pair energies per slot over the
 pass 2 sweeps the same blocks again with coefficients
 (dphi + (dF_i + dF_j) drho)/r (eam.c:166-190 combine rule).  dF values
 are re-blocked exactly like positions, so both passes are pure
-batched-matmul + VPU sweeps -- no scatter, no per-pair gather.
+batched-matmul + elementwise sweeps -- no scatter, no per-pair gather.
 
 Functional forms are shared with the (N,K)-list path
 (potentials.eam._pair_eval/_embedding), which stays as the validation
@@ -51,7 +51,7 @@ def eam_cellblock_eval(r, sidx, fmask, perm, box_geom,
     shift, centers = block_geometry(grid, box_geom, dt)
 
     Q = P[stencil] + shift[:, :, None, :]
-    # cell-centered coordinates (see cellpair.py: f32 MXU cancellation)
+    # cell-centered coordinates (see cellpair.py: f32 matmul cancellation)
     Pc = P - centers[:, None, :]
     Q = (Q - centers[:, None, None, :]).reshape(ncell, S * cap, 3)
     Qt = Pt[stencil].reshape(ncell, S * cap)

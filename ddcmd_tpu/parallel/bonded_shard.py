@@ -5,7 +5,7 @@ MOLECULE ddcRule rewrites migration destinations so whole molecules stay
 on one rank (ddcRuleMolecule, /root/reference/src/ddcRuleMolecule.c:43);
 each rank then evaluates the terms whose atoms it owns.
 
-TPU shape: the per-term PARAMETERS are row-independent constants, so the
+Device shape: the per-term PARAMETERS are row-independent constants, so the
 full term lists ride along as replicated device arrays keyed by GID.
 Each device resolves gids -> local pool rows (sorted local+ghost gids +
 searchsorted -- a pure gather, no communication) every force call, masks

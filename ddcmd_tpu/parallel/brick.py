@@ -442,3 +442,20 @@ def distribute_bricks(arrays: dict, box_lengths, plan: BrickPlan):
         out[k] = buf.reshape((plan.n_dev * plan.local_cap,) + a.shape[1:])
     mask = (np.arange(plan.local_cap)[None, :] < counts[:, None]).reshape(-1)
     return out, mask, counts
+
+
+def walls_span_minmax(walls, shape):
+    """(min, max) brick-span FRACTIONS per axis from a BrickPlan.walls
+    tuple (1-D shared, or hierarchical ORCB 2-D/3-D); uniform 1/shape
+    for axes without walls."""
+    mins = np.empty(3)
+    maxs = np.empty(3)
+    for a in range(3):
+        w = None if walls is None else walls[a]
+        if w is None:
+            mins[a] = maxs[a] = 1.0 / shape[a]
+        else:
+            d = np.diff(np.asarray(w, dtype=np.float64), axis=-1)
+            mins[a] = float(d.min())
+            maxs[a] = float(d.max())
+    return mins, maxs

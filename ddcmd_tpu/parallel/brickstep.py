@@ -100,7 +100,7 @@ def make_brick_step(mesh: Mesh, plan: BrickPlan, grid: CellGrid, tables,
         r_pad = jnp.concatenate([r_ext, jnp.zeros((1, 3), dt_)])
         s_pad = jnp.concatenate([s_ext_, jnp.zeros((1,), s_ext_.dtype)])
         # per-component displacements on orthorhombic boxes: a
-        # materialized (N,K,3) lane-pads 3 -> 128 on TPU (42x, r5)
+        # materialized (N,K,3) intermediate would carry a 3-wide minor dim
         ortho = np.ndim(Lv) == 1
         if ortho:
             d_c = []

@@ -1,10 +1,10 @@
 """Load balancing: equal-work domain walls.
 
 Reference: loadBalance.c registry with zRamp (zRampLoadBalance.c:55-239)
-and bisection (recbis ORCB) balancers.  TPU-idiomatic shape: domains are
+and bisection (recbis ORCB) balancers.  SPMD shape: domains are
 fixed-capacity shards, so "balance" means choosing the slab/brick WALL
 positions so per-device particle counts (and pair work ~ density^2)
-equalize -- that is what bounds the padded capacity and the wasted lanes.
+equalize -- that is what bounds the padded capacity and the wasted slots.
 
 zramp_walls is a faithful port of the zRamp algorithm: bin the particle
 density along the axis (optionally smeared), square it (work ~ rho^2,

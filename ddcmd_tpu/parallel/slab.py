@@ -1,6 +1,6 @@
 """Spatial domain decomposition over a jax.sharding.Mesh: 1D slabs.
 
-TPU-native re-design of the reference's DDC layer
+Re-design of the reference's DDC layer
 (/root/reference/src/ddc.c, ddcSendRecv.c, ddcUpdate.c, ddcAssignment.c):
 
   * domains = equal x-slabs over a 1D device mesh (the reference's

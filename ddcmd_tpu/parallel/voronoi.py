@@ -10,7 +10,7 @@ remote for domain j when it lies within rcut of the separating plane
 (domainset_separatingPlane / domain_possibleRemote_by_plane,
 /root/reference/src/domain.c:131-160).
 
-TPU-native shape: the SPMD communication graph must stay static, so
+SPMD shape: the communication graph must stay static, so
 centers are CLAMPED to a displacement box around their home brick
 center.  A per-axis bound beta guarantees every Voronoi cell stays
 inside the 3x3x3 brick neighborhood of its home brick, which keeps the

@@ -20,8 +20,8 @@ Forms verified against the reference's covalent engines
                       correction here = -(LJ+shift) - keR q q / r per
                       excluded pair within cutoff.
 
-TPU shape: every term family is a flat padded array of index tuples +
-parameters; evaluation is gather -> VPU math -> scatter-add (term counts
+Device shape: every term family is a flat padded array of index tuples +
+parameters; evaluation is gather -> elementwise math -> scatter-add (term counts
 are O(N), far off the hot path; the nonbond cell engine dominates).
 """
 
@@ -333,8 +333,7 @@ def bonded_eval(r, box_lengths, terms: dict, n_pad: int, dtype):
     # static-incidence "ledger" mode (single-chip path, topology fixed):
     # per-(term, role) force/pe contributions are appended to flat
     # buffers in LEDGER_FAMILIES order and summed into per-atom rows by
-    # ONE gather at the end -- TPU scatter-add (`.at[].add`) is the
-    # dominant bonded cost at 100k terms, gathers are near-free.  The
+    # ONE gather at the end, replacing the scatter-add (`.at[].add`).  The
     # sharded path (dynamic per-device rows + _w weights) keeps scatter.
     ledger = terms.get("ledger")
     contrib_f: list = []

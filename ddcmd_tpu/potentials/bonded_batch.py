@@ -1,9 +1,8 @@
-"""Residue-template batched bonded evaluation (TPU fast path).
+"""Residue-template batched bonded evaluation (fast path).
 
 The generic evaluator (bonded.bonded_eval) assembles forces with
-per-term row gathers + scatter-adds; on TPU both cost ~3-13 ns PER ROW
-(r5 micro-benches), so ~400k term-role rows make the covalent terms a
-~6 ms/step phase at the 100k bilayer -- second only to the pair kernel.
+per-term row gathers + scatter-adds, ~400k term-role rows per step at
+the 100k bilayer.
 
 This module exploits what the reference exploits with its per-residue
 GPU kernels (/root/reference/src/bondedGPU.cu:1244-2988): terms are
@@ -17,7 +16,7 @@ instances of a type as (component, term, instance) arrays:
   * term geometry by STATIC local indexing of an (3, A, M) block --
     no per-term gather at all,
   * per-atom force/pe accumulation as a tiny one-hot (S, A) matmul on
-    the MXU -- no scatter at all,
+    a matmul -- no scatter at all,
   * ONE static slice-add (or unique-row scatter) writeback.
 
 Instance count M rides the lane dimension, so all per-term math is
@@ -389,7 +388,7 @@ def batched_bonded_eval(r, box_lengths, plan: dict, n_pad: int, dtype,
         if not contribs_f:
             continue
         # accumulate slots -> local atoms with a static one-hot matmul
-        # (the MXU does the "scatter"); S = total term-role slots
+        # (the matmul does the "scatter"); S = total term-role slots
         C = jnp.concatenate(contribs_f, axis=1)          # (3, S, M)
         PEc = jnp.concatenate(contribs_pe, axis=0)       # (S, M)
         slots = np.concatenate(slot_atoms)               # (S,)

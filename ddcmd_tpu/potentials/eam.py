@@ -21,8 +21,8 @@ forms verified from their sources:
 Force combine (eam.c:166-190):
   (dv/dr)/r = pass2_e(r) + pass2_p(r) * (dF_i + dF_j).
 
-TPU evaluation: both passes ride the same full (N,K) neighbor list
-(gather + masked VPU + row sums; densities are per-row sums so no
+Evaluation: both passes ride the same full (N,K) neighbor list
+(gather + masked elementwise math + row sums; densities are per-row sums so no
 scatter).  A cell-block variant follows the nonbond engine.
 """
 
@@ -176,11 +176,10 @@ def compile_eam(db: ObjectDB, name: str, species, base_dir: str = ".") -> EamPar
         tab = EamParms(form, ns, rmax,
                        dict(tabs=pair_tabs), dict(tabs=embed_tabs))
         if pot.get_str("tabularFit", "").lower() == "rational":
-            # TPU-native opt-in: the VPU has no per-lane gather, so
-            # tabular decks either run on the XLA engine (linear-interp
-            # lookups) or refit to the rational-in-r^2 RATIONAL form the
-            # pallas kernels evaluate with pure flops.  Fit residual is
-            # checked against tabularFitTol (default 1e-3 relative).
+            # opt-in: refit the tables to the rational-in-r^2 RATIONAL
+            # form, evaluated with pure flops instead of per-pair
+            # interval lookups.  Fit residual is checked against
+            # tabularFitTol (default 1e-3 relative).
             tol = float(pot.get_str("tabularFitTol", "1e-3"))
             fitted, err = fit_tabular_rational(tab)
             if err > tol:
@@ -355,10 +354,9 @@ def fit_tabular_rational(parms: EamParms, n_p=10, n_q=6):
     """TABULAR -> RATIONAL refit (opt-in, deck `tabularFit=rational`).
 
     The reference GPU path gathers tabular phi/rho/F from texture-like
-    tables per pair (eam_tabular.c, pairProcessGPU.cu); the TPU VPU has
-    no per-lane gather, so the TPU-native equivalent is to refit each
-    table to the RATIONAL form (rationals of r^2 for phi/rho, of rho for
-    F) and run the analytic pallas kernels.  Returns (EamParms RATIONAL,
+    tables per pair (eam_tabular.c, pairProcessGPU.cu); the refit
+    replaces each table by the RATIONAL form (rationals of r^2 for
+    phi/rho, of rho for F), evaluated with pure flops.  Returns (EamParms RATIONAL,
     max relative residual over all fitted tables)."""
     assert parms.form == "TABULAR"
     ns = parms.n_species
@@ -634,7 +632,8 @@ def eam_eval(r, sidx, fmask, nbr_idx, box_lengths, tables):
     r_ext = jnp.concatenate([r, jnp.zeros((1, 3), dtype=dt)], axis=0)
     s_ext = jnp.concatenate([sidx, jnp.zeros((1,), dtype=sidx.dtype)], axis=0)
     # per-component displacements on orthorhombic boxes: a materialized
-    # (N,K,3) lane-pads 3 -> 128 on TPU (42x; see martini_nonbond, r5)
+    # (N,K,3) intermediate would carry a 3-wide minor dim (see
+    # martini_nonbond)
     import numpy as _np
 
     ortho = _np.ndim(box_lengths) == 1

@@ -18,8 +18,9 @@ Nonbond physics verified against the reference
     (krf r^2 - crf), added by the intra-molecule correction
     (martiniIntraMoleReaction, bioMartini.c:1124-1208).
 
-The TPU formulation evaluates pairs from a FULL padded neighbor list
-(each pair from both sides): pure gather + masked VPU math + row sums;
+The XLA formulation evaluates pairs from a FULL padded neighbor list
+(each pair from both sides): pure gather + masked elementwise math + row
+sums;
 energies/virials carry the 0.5 double-count factor.
 """
 
@@ -157,8 +158,8 @@ def martini_nonbond(r, q, tidx, fmask, nbr_idx, box_lengths, tables,
     t_ext = jnp.concatenate([tidx, jnp.zeros((1,), dtype=tidx.dtype)], axis=0)
 
     # orthorhombic boxes keep displacements PER COMPONENT ((N,K) each):
-    # a materialized (N,K,3) tile-pads its minor dim 3 -> 128 on TPU
-    # (42x memory -- the c36 OOM, r5); triclinic keeps the vector path
+    # a materialized (N,K,3) keeps a 3-wide minor dim that tiled layouts
+    # pad many-fold (the c36 OOM); triclinic keeps the vector path
     import numpy as _np
 
     ortho = _np.ndim(box_lengths) == 1

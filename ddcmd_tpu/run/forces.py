@@ -9,7 +9,9 @@ chains into the neighbor gathers).
 from __future__ import annotations
 
 import os
+import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -19,12 +21,13 @@ from ..ops.cellpair import (cellpair_eval_half, half_back_map, half_grid,
 from ..potentials.martini import martini_device_tables, martini_nonbond
 from ..potentials.pair import pair_device_tables, pair_lj
 
+ENGINES = ("pallas", "cellblock", "nlist")
 
 
 def _inlist_excl(sysdef, engine) -> bool:
     """True when the pair engine masks excluded pairs IN-ENGINE (and the
     bonded block adds back only the kept RF term): the (N,K)-list engine
-    masks in-list; the pallas engine masks in-kernel via the exclusion
+    masks in-list; the pallas kernel masks in-kernel via the exclusion
     record channels (when the topology fits the exact-f32 encoding)."""
     if (sysdef.bonded is None or sysdef.bonded.exclusions is None
             or os.environ.get("DDCMD_INLIST_EXCL", "1") == "0"):
@@ -38,6 +41,91 @@ def _inlist_excl(sysdef, engine) -> bool:
                 and _excl_channels(sysdef.bonded.exclusions,
                                    sysdef.state.n_pad) is not None)
     return False
+
+
+def kernel_unsupported(sysdef, dtype) -> str | None:
+    """Why the pallas pair kernel cannot run this deck (None if it can):
+    float32, orthorhombic, fully periodic, MARTINI / analytic PAIR pair
+    terms, and an exclusion graph that fits the in-kernel encoding."""
+    if jnp.dtype(dtype) != jnp.float32:
+        return "the kernel computes in float32"
+    if not sysdef.box.ortho:
+        return "triclinic box"
+    if int(sysdef.box.pbc) & 7 != 7:
+        return "non-periodic axes"
+    for ptype, _, parms in sysdef.potentials:
+        if ptype in ("EAM", "PAIRENERGY", "ORDERSH") or (
+                ptype == "PAIR" and parms.table is not None):
+            return f"{ptype} pair term"
+    bt = sysdef.bonded
+    if (bt is not None and bt.exclusions is not None
+            and os.environ.get("DDCMD_INLIST_EXCL", "1") != "0"
+            and _excl_channels(bt.exclusions, sysdef.state.n_pad) is None):
+        return "exclusion graph wider than the in-kernel encoding"
+    return None
+
+
+def choose_engine(sysdef, dtype, requested: str = "auto",
+                  backend: str | None = None,
+                  interpret: bool = False) -> str:
+    """The pair engine for a deck, chosen by backend:
+
+    * decks with nlist-only terms (PAIRENERGY, ORDERSH) run on 'nlist';
+    * the CPU runs the XLA 'cellblock' engine;
+    * a GPU runs the 'pallas' kernel where kernel_unsupported allows it
+      and 'nlist' otherwise: on an H100 XLA's nlist engine ran EAM
+      copper 2x faster than cellblock (PERF.md), and it masks excluded
+      pairs in-list (the f32 subtract residual is unsafe, see
+      _excl_channels).
+
+    An explicit request the backend or the deck cannot honour raises.
+    interpret=True stands in for a GPU: the kernel then runs in Pallas
+    interpret mode on the CPU (tests and rehearsals only)."""
+    if requested not in ("auto",) + ENGINES:
+        raise ValueError(f"unknown engine {requested!r}")
+    gpu = (backend or jax.default_backend()) == "gpu" or interpret
+    if any(p[0] in ("PAIRENERGY", "ORDERSH") for p in sysdef.potentials):
+        if requested not in ("auto", "nlist"):
+            raise ValueError(f"engine={requested!r}: PAIRENERGY/ORDERSH "
+                             "run on the nlist engine only")
+        return "nlist"
+    why = kernel_unsupported(sysdef, dtype)
+    if requested == "pallas":
+        if not gpu:
+            raise ValueError(
+                "engine='pallas' needs a GPU; interpret=True runs it on "
+                "the CPU for tests")
+        if why:
+            raise ValueError(f"engine='pallas' cannot run this deck: {why}")
+        return "pallas"
+    if requested != "auto":
+        return requested
+    if not gpu:
+        return "cellblock"
+    if why is None:
+        return "pallas"
+    if why.startswith("exclusion graph"):
+        warnings.warn(
+            "exclusion graph exceeds the in-kernel encoding (>12-member "
+            "component): running the nlist engine, which masks excluded "
+            "pairs in-list", stacklevel=3)
+    return "nlist"
+
+
+def _uniform_type_tables(sysdef, tables, tmap):
+    """Collapse the LJ tables to 1x1 when the collection uses a single LJ
+    type (the Martini waterbox): the engines then read scalar
+    parameters instead of per-pair table lookups.  tmap: species -> LJ
+    type."""
+    n_loc = sysdef.state.n_local
+    used = np.unique(np.asarray(tmap)[
+        np.asarray(sysdef.state.species[:n_loc])])
+    if len(used) != 1:
+        return tables, tmap
+    t0 = int(used[0])
+    tables = dict(tables, **{k: tables[k][t0:t0 + 1, t0:t0 + 1]
+                             for k in ("sigma", "eps", "shift")})
+    return tables, jnp.zeros_like(tmap)
 
 
 def _excl_channels(exclusions, n_pad: int):
@@ -117,13 +205,15 @@ def _geom(box):
     return box.lengths if box.ortho else box.h
 
 def build_force_fn(sysdef: SystemDef, dtype=jnp.float32, engine: str = "cellblock",
-                   grid=None):
+                   grid=None, interpret: bool = False):
     """Returns force_fn(state, box, handle) -> (f, e_pot, virial, pe).
 
     engine 'cellblock': handle is the slot permutation from
-    ops.cellpair.build_cell_slots (the TPU hot path, MXU cell blocks).
-    engine 'nlist': handle is the (N,K) neighbor index list (validation
-    path, also used by the sharded slab step)."""
+    ops.cellpair.build_cell_slots (XLA cell blocks).
+    engines 'pallas' / 'nlist': handle is the (N,K) neighbor index list;
+    'pallas' evaluates MARTINI/PAIR with the GPU kernel
+    (ops/pallas_nlist.py), 'nlist' in plain XLA.  interpret=True runs
+    the kernel on the CPU (tests)."""
     terms = []
     for ptype, name, parms in sysdef.potentials:
         if ptype == "MARTINI":
@@ -136,75 +226,29 @@ def build_force_fn(sysdef: SystemDef, dtype=jnp.float32, engine: str = "cellbloc
             coul = bool(np.any(np.asarray(sysdef.state.q[:n_loc0]) != 0.0))
 
             if engine == "pallas":
-                from ..ops.pallas_cellpair import (choose_col_group,
-                                                   make_pallas_cellpair_half,
-                                                   make_pallas_cellpair_half_col,
-                                                   pack_stencil,
-                                                   pack_stencil_col,
-                                                   pallas_cellpair_eval_half)
+                from ..ops.pallas_nlist import nlist_pair_eval
 
-                # uniform-type fast path (same collapse as the cellblock
-                # engine): scalar LJ parameters inside the kernel
-                n_loc = sysdef.state.n_local
-                used = np.unique(np.asarray(parms.species_lj_type)[
-                    np.asarray(sysdef.state.species[:n_loc])])
-                if len(used) == 1:
-                    t0 = int(used[0])
-                    tables = dict(
-                        tables,
-                        sigma=tables["sigma"][t0:t0 + 1, t0:t0 + 1],
-                        eps=tables["eps"][t0:t0 + 1, t0:t0 + 1],
-                        shift=tables["shift"][t0:t0 + 1, t0:t0 + 1])
-                    tmap = jnp.zeros_like(tmap)
-
-                hg = half_grid(grid)
-                interp = bool(os.environ.get("DDCMD_PALLAS_INTERPRET"))
+                tables, tmap = _uniform_type_tables(sysdef, tables, tmap)
                 # in-kernel bonded-pair exclusions (exclude-from-list
-                # discipline) when the topology fits the exact-f32
-                # record encoding -- see _excl_channels
+                # discipline) -- see _excl_channels
                 excl_vals = None
                 if _inlist_excl(sysdef, engine):
                     excl_vals = jnp.asarray(_excl_channels(
                         sysdef.bonded.exclusions, sysdef.state.n_pad))
-                G = choose_col_group(hg)
-                if G > 1:
-                    eval_fn = make_pallas_cellpair_half_col(
-                        hg, tables, G, coulomb=coul, interpret=interp,
-                        excl=excl_vals is not None)
-                    stencil = jnp.asarray(pack_stencil_col(hg, G))
-                else:
-                    eval_fn = make_pallas_cellpair_half(
-                        hg, tables, coulomb=coul, interpret=interp,
-                        excl=excl_vals is not None)
-                    stencil = jnp.asarray(pack_stencil(hg))
 
-                def martini_term(state, box, handle, tables=tables, tmap=tmap,
-                                 eval_fn=eval_fn, stencil=stencil, hg=hg,
-                                 coul=coul, excl_vals=excl_vals):
-                    tidx = tmap[state.species]
-                    f, e, virial, pe = pallas_cellpair_eval_half(
-                        state.r, state.q, tidx, handle, box.lengths, hg,
-                        tables, stencil, eval_fn, excl_vals=excl_vals)
+                def martini_term(state, box, nbr_idx, tables=tables,
+                                 tmap=tmap, coul=coul, excl_vals=excl_vals):
+                    f, e, virial, pe = nlist_pair_eval(
+                        state.r, state.q, tmap[state.species], state.fmask,
+                        nbr_idx, box.lengths, tables, coulomb=coul,
+                        excl_vals=excl_vals, interpret=interpret)
                     if not coul:
                         return f, e, virial, pe
                     e_self_i = (-0.5 * state.q * state.q * state.fmask
                                 * tables["keR"] * tables["crf"])
                     return f, e + jnp.sum(e_self_i), virial, pe + e_self_i
             elif engine == "cellblock":
-                # uniform-type fast path: collapse the LJ tables to 1x1
-                # when the collection uses a single LJ type
-                n_loc = sysdef.state.n_local
-                used = np.unique(np.asarray(parms.species_lj_type)[
-                    np.asarray(sysdef.state.species[:n_loc])])
-                if len(used) == 1:
-                    t0 = int(used[0])
-                    tables = dict(
-                        tables,
-                        sigma=tables["sigma"][t0:t0 + 1, t0:t0 + 1],
-                        eps=tables["eps"][t0:t0 + 1, t0:t0 + 1],
-                        shift=tables["shift"][t0:t0 + 1, t0:t0 + 1])
-                    tmap = jnp.zeros_like(tmap)
-
+                tables, tmap = _uniform_type_tables(sysdef, tables, tmap)
                 hg = half_grid(grid)
                 back = jnp.asarray(half_back_map(hg))
                 allowed = pbc_allowed(hg, sysdef.box.pbc)
@@ -246,30 +290,13 @@ def build_force_fn(sysdef: SystemDef, dtype=jnp.float32, engine: str = "cellbloc
             tables = pair_device_tables(parms, dtype=dtype)
 
             if engine == "pallas":
-                from ..ops.pallas_cellpair import (choose_col_group,
-                                                   make_pallas_cellpair_half,
-                                                   make_pallas_cellpair_half_col,
-                                                   pack_stencil,
-                                                   pack_stencil_col,
-                                                   pallas_cellpair_eval_half)
+                from ..ops.pallas_nlist import nlist_pair_eval
 
-                hg = half_grid(grid)
-                interp = bool(os.environ.get("DDCMD_PALLAS_INTERPRET"))
-                G = choose_col_group(hg)
-                if G > 1:
-                    eval_fn = make_pallas_cellpair_half_col(
-                        hg, tables, G, coulomb=False, interpret=interp)
-                    stencil = jnp.asarray(pack_stencil_col(hg, G))
-                else:
-                    eval_fn = make_pallas_cellpair_half(
-                        hg, tables, coulomb=False, interpret=interp)
-                    stencil = jnp.asarray(pack_stencil(hg))
-
-                def pair_term(state, box, handle, tables=tables,
-                              eval_fn=eval_fn, stencil=stencil, hg=hg):
-                    return pallas_cellpair_eval_half(
-                        state.r, state.q, state.species, handle, box.lengths,
-                        hg, tables, stencil, eval_fn)
+                def pair_term(state, box, nbr_idx, tables=tables):
+                    return nlist_pair_eval(
+                        state.r, state.q, state.species, state.fmask,
+                        nbr_idx, box.lengths, tables, coulomb=False,
+                        interpret=interpret)
             elif engine == "cellblock":
                 lj_tables = dict(tables)
                 hg = half_grid(grid)
@@ -291,36 +318,7 @@ def build_force_fn(sysdef: SystemDef, dtype=jnp.float32, engine: str = "cellbloc
             from ..potentials.eam import eam_device_tables, eam_eval
 
             etables = eam_device_tables(parms, dtype=dtype)
-            if engine == "pallas":
-                from ..ops.pallas_cellpair import (choose_col_group,
-                                                   pack_stencil,
-                                                   pack_stencil_col)
-                from ..ops.pallas_eam import (make_pallas_eam,
-                                              make_pallas_eam_col,
-                                              pallas_eam_eval,
-                                              pallas_eam_supported)
-
-                assert pallas_eam_supported(etables),                     "Simulation routes unsupported EAM to cellblock"
-                hg = half_grid(grid)
-                interp = bool(os.environ.get("DDCMD_PALLAS_INTERPRET"))
-                G = choose_col_group(hg)
-                if G > 1:
-                    rho_fn, fforce_fn = make_pallas_eam_col(
-                        hg, etables, G, interpret=interp)
-                    stencil = jnp.asarray(pack_stencil_col(hg, G))
-                else:
-                    rho_fn, fforce_fn = make_pallas_eam(
-                        hg, etables, interpret=interp)
-                    stencil = jnp.asarray(pack_stencil(hg))
-
-                def eam_term(state, box, perm, etables=etables, hg=hg,
-                             stencil=stencil, rho_fn=rho_fn,
-                             fforce_fn=fforce_fn):
-                    return pallas_eam_eval(
-                        state.r, state.species, state.fmask, perm,
-                        box.lengths, hg, etables, stencil, rho_fn,
-                        fforce_fn)
-            elif engine == "cellblock":
+            if engine == "cellblock":
                 from ..ops.cellpair_eam import eam_cellblock_eval_half
 
                 hg = half_grid(grid)
@@ -406,12 +404,11 @@ def build_force_fn(sysdef: SystemDef, dtype=jnp.float32, engine: str = "cellbloc
             excl_mode="rf_add" if _inlist_excl(sysdef, engine) else "subtract",
             krf=mparms.krf, crf=mparms.crf)
         n_pad = sysdef.state.n_pad
-        # incidence-ledger assembly (gather instead of scatter-add):
-        # a measured NEGATIVE on TPU (r5 micro A/B: 8.5 vs 6.6 ms at
-        # 180k terms -- the (n_pad, D) gather pads D to the max degree
-        # and row-gathers n_pad*D rows vs the scatter's 2T) -- default
-        # OFF, kept for A/Bs; the production fix is the residue-template
-        # batched evaluator below
+        # incidence-ledger assembly (gather instead of scatter-add; the
+        # (n_pad, D) gather pads D to the max degree and row-gathers
+        # n_pad*D rows vs the scatter's 2T) -- default OFF, kept for
+        # A/Bs (not measured on the GPU); the production path is the
+        # residue-template batched evaluator below
         if os.environ.get("DDCMD_BONDED_LEDGER", "0") == "1":
             from ..potentials.bonded import build_bonded_ledger
 
@@ -421,7 +418,7 @@ def build_force_fn(sysdef: SystemDef, dtype=jnp.float32, engine: str = "cellbloc
 
         # residue-template batched evaluation (potentials/bonded_batch):
         # intra-residue terms run as lane-dense per-type batches with
-        # MXU one-hot accumulation -- no per-term gather/scatter; terms
+        # one-hot matmul accumulation -- no per-term gather/scatter; terms
         # crossing instances (CHARMM junctions, CMAP) stay on the
         # generic path via the leftover dict.  DDCMD_BONDED_BATCH=0
         # opts back into the generic evaluator.

@@ -4,7 +4,7 @@ Reference role: simutil tfunction.c / table_function.c (ad-hoc text
 tables driving TABULAR EAM forms and PAIR TableFunction).  File format:
 whitespace columns, '#' or '//' comments; column 0 is x, columns 1..k
 are values.  Device evaluation resamples onto a uniform grid and does
-linear interpolation (gather + lerp -- the TPU-friendly form); the
+linear interpolation (gather + lerp); the
 derivative table is the exact derivative of that interpolant's cubic
 smoothing, precomputed on the host.
 """

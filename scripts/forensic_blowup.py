@@ -12,7 +12,7 @@ within rlist (scipy KDTree).  A mismatch is a missed pair / kernel
 defect; a match means the approach was physical (integration/dt issue).
 
 Usage: FOR_DUMP=/tmp/blowup.npz FOR_DECK=/tmp/tmpXXXX \
-       python scripts/forensic_blowup.py        # runs on the TPU
+       python scripts/forensic_blowup.py        # runs on the GPU
 """
 import os
 import sys

@@ -121,7 +121,8 @@ def test_parallel_waterbox_deck(waterbox_dir):
     db2 = load_db([str(waterbox_dir / "object.data")],
                   str(waterbox_dir / "snapshot.mem" / "restart"),
                   str(waterbox_dir))
-    sim = Simulation(db2, str(waterbox_dir), run_dir="/tmp", engine="nlist")
+    sim = Simulation(db2, str(waterbox_dir), run_dir=str(waterbox_dir),
+                     engine="nlist")
     sim.first_energy()
     e_single = float(sim.ss.energy.eion)
     # sharded nonbond lacks the RF self-energy term (constant): add it
@@ -146,9 +147,14 @@ def test_parallel_waterbox_deck(waterbox_dir):
     assert np.isfinite(np.asarray(psim.f)[m2]).all()
     v1 = float(jnp.prod(psim.Lv))
     assert np.isfinite(v1) and v1 != v0        # barostat moved the box
-    # the single-chip run compresses ~3.5% over the same 40 steps (the
-    # restart sits above 1 bar); sharded must match that scale
-    assert 0.005 < abs(v1 - v0) / v0 < 0.06
+    # the lattice start sits far from 1 bar, so the box moves by several
+    # percent over these steps; the single-device driver's move over the
+    # same steps sets the scale the sharded one must match
+    vs0 = float(jnp.prod(sim.ss.box.lengths))
+    sim.run(2 * psim.chunk_steps + 3, print_fn=lambda s: None)
+    dv_single = (float(jnp.prod(sim.ss.box.lengths)) - vs0) / vs0
+    assert abs(dv_single) > 0.005
+    assert (v1 - v0) / v0 == pytest.approx(dv_single, rel=0.05)
 
     # custom migration cadence under NPT: migrate_rate becomes the chunk
     # length (r4; was NotImplementedError)

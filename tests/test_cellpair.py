@@ -1,4 +1,4 @@
-"""Cell-blocked MXU pair engine vs the (N,K) list engine: identical physics."""
+"""Cell-blocked matmul pair engine vs the (N,K) list engine: identical physics."""
 
 import numpy as np
 import pytest
@@ -144,72 +144,59 @@ def test_cellblock_half_matches_full():
                                    rtol=1e-8, atol=1e-12)
 
 
-def test_overflow_recapacity_completes(tmp_path, monkeypatch):
-    """Cell-capacity overflow triggers host recapacity + chunk redo
-    (allocPages/checkbounds analog) on both cell engines."""
+def test_overflow_recapacity_completes(tmp_path):
+    """Capacity overflow triggers host recapacity + chunk redo
+    (allocPages/checkbounds analog) on the cellblock engine (cell cap)
+    and the pallas kernel (neighbor-list width)."""
+    import dataclasses
+
     from ddcmd_tpu.models import lj_fluid, load
     from ddcmd_tpu.run.simulate import Simulation
 
     lj_fluid(str(tmp_path), n=400)
+    small = 8
     for engine in ("cellblock", "pallas"):
-        if engine == "pallas":
-            monkeypatch.setenv("DDCMD_PALLAS_INTERPRET", "1")
         db, base = load(str(tmp_path))
-        sim = Simulation(db, base, run_dir=str(tmp_path), engine=engine)
-        # sabotage: shrink the per-cell capacity so the first build overflows
-        small = 8 if engine == "cellblock" else 128
-        assert sim.grid.cap > small or engine == "pallas"
+        sim = Simulation(db, base, run_dir=str(tmp_path), engine=engine,
+                         interpret=engine == "pallas")
+        # sabotage: shrink the capacity so the first build overflows
         if engine == "cellblock":
+            assert sim.grid.cap > small
             sim.grid = sim.grid.with_cap(small)
-            from ddcmd_tpu.run.forces import build_force_fn
-
-            sim.force_fn = build_force_fn(sim.sysdef, dtype=sim.dtype,
-                                          engine=engine, grid=sim.grid)
-            sim._rebuild_step_fn()
-            sim._compile()
-            cap0 = small
         else:
-            cap0 = sim.grid.cap
+            assert sim.grid.max_neighbors > small
+            sim.grid = dataclasses.replace(sim.grid, max_neighbors=small)
+        sim.force_fn = sim._build_force_fn()
+        sim._rebuild_step_fn()
+        sim._compile()
         sim.first_energy()
         sim.run(10, print_fn=lambda s: None)
-        e = float(sim.ss.energy.eion)
-        assert np.isfinite(e)
-        if engine == "cellblock":
-            assert sim.grid.cap > cap0      # recapacity actually fired
+        assert np.isfinite(float(sim.ss.energy.eion))
+        cap = sim.grid.cap if engine == "cellblock" else sim.grid.max_neighbors
+        assert cap > small                  # recapacity actually fired
 
 
-def test_pallas_recapacity_replans_to_aligned_caps(tmp_path, monkeypatch):
-    """Pallas overflow recovery stays ON the pallas engine and NEVER
-    emits a cap that is not 128-lane aligned: Mosaic rejects HBM window
-    slices not aligned to the (8,128) tiling at hardware compile time
-    ("Slice shape along dimension 2 must be aligned to tiling (128), but
-    is 192" -- hit by an NVT bilayer density fluctuation).  recapacity()
-    escalates the planner's density safety and REPLANS; a single call may
-    keep the same plan (the escalated need can still fit), but the
-    first_energy/run overflow ladders call it repeatedly, so the cap must
-    eventually grow -- always in whole 128-lane granules.  (The old XLA
-    fallback is also banned: its (C, c, S*c) HBM intermediates exceed the
-    chip at ~100k atoms -- observed 17.5GB on the bilayer.)"""
-    monkeypatch.setenv("DDCMD_PALLAS_INTERPRET", "1")
+def test_pallas_recapacity_replans_to_aligned_caps(tmp_path):
+    """Pallas overflow recovery stays ON the pallas engine and grows the
+    neighbor-list width in whole kernel blocks: every recapacity()
+    leaves max_neighbors a multiple of the kernel's BLOCK_NBRS, so no
+    list is padded with a ragged tail of sentinel entries.  (No silent
+    fall back to an XLA engine: engine choice is explicit.)"""
     from ddcmd_tpu.models import lj_fluid, load
+    from ddcmd_tpu.ops.pallas_nlist import BLOCK_NBRS
     from ddcmd_tpu.run.simulate import Simulation
 
     lj_fluid(str(tmp_path), n=400)
     db, base = load(str(tmp_path))
-    sim = Simulation(db, base, run_dir=str(tmp_path), engine="pallas")
+    sim = Simulation(db, base, run_dir=str(tmp_path), engine="pallas",
+                     interpret=True)
     assert sim.engine == "pallas"
     sim.first_energy()
-    cap0 = sim.grid.cap
-    assert cap0 % 128 == 0
-    # the overflow ladder: repeated escalation must grow cap within the
-    # same 10-round headroom first_energy/run give it, staying pallas and
-    # staying 128-aligned at every intermediate plan
-    for _ in range(10):
+    k0 = sim.grid.max_neighbors
+    for _ in range(2):
         sim.recapacity()
         assert sim.engine == "pallas"
-        assert sim.grid.cap % 128 == 0
-        if sim.grid.cap > cap0:
-            break
-    assert sim.grid.cap > cap0
+        assert sim.grid.max_neighbors % BLOCK_NBRS == 0
+    assert sim.grid.max_neighbors > k0
     sim.run(10, print_fn=lambda s: None)
     assert np.isfinite(float(sim.ss.energy.eion))

@@ -522,15 +522,13 @@ def test_eam_multispecies_asymmetric_density_fd():
 
 def test_eam_tabular_fit_rational():
     """deck `tabularFit=rational`: TABULAR tables refit to the RATIONAL
-    form (the TPU-native path -- no per-lane gather on the VPU, so the
-    pallas kernels want pure flops).  The fitted form must track the
-    underlying smooth FS functions the tables sampled, and route to the
-    pallas engine."""
+    form (analytic evaluation: pure flops, no per-pair interval gathers).
+    The fitted form must track the underlying smooth FS functions the
+    tables sampled."""
     import os
     import tempfile
 
     from ddcmd_tpu.objects import ObjectDB
-    from ddcmd_tpu.ops.pallas_eam import pallas_eam_supported
     from ddcmd_tpu.potentials.eam import compile_eam
 
     rcut = 0.55
@@ -560,7 +558,7 @@ def test_eam_tabular_fit_rational():
     parms = compile_eam(db, "pot", [Sp()], d)
     assert parms.form == "RATIONAL"
     fit_tables = eam_device_tables(parms, dtype=jnp.float64)
-    assert pallas_eam_supported(fit_tables)
+    assert fit_tables["form"] == "RATIONAL"
     fs_tables = eam_device_tables(fs, dtype=jnp.float64)
 
     rr, L = fcc(0.3615, 3)

@@ -1,14 +1,12 @@
-"""Sharded pallas engine: the flagship kernel under the brick mesh.
+"""Sharded pallas engine: the pair kernel under the brick mesh.
 
-Validates the round-4 architecture (parallel/pallas_shard +
-parallel/brickstep_pallas): per-device extended cell grids, core-cell
-pair ownership (each pair evaluated once mesh-wide), frozen halo routing
-with per-step position refresh, and the reverse force/energy reduce --
+Validates parallel/brickstep_pallas: per-device neighbor lists of the
+local rows over the local+ghost pool, frozen halo routing with per-step
+position refresh, and the reverse reduce of bonded ghost shares --
 against the (N,K) nlist brick engine and the single-device evaluation.
-Kernels run in interpret mode on the 8-device CPU mesh (tests/conftest).
+The kernel runs in interpret mode on the 8-device CPU mesh
+(tests/conftest).
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -25,7 +23,6 @@ from ddcmd_tpu.parallel.brick import (BrickPlan, distribute_bricks,
                                       halo_refresh_3d)
 from ddcmd_tpu.parallel.brickstep import make_brick_mesh
 from ddcmd_tpu.parallel.brickstep_pallas import make_brick_step_pallas
-from ddcmd_tpu.parallel.pallas_shard import plan_shard_cells
 from ddcmd_tpu.potentials.martini import martini_nonbond
 
 SHAPE = (2, 2, 2)
@@ -53,31 +50,38 @@ def _shard(mesh, buf):
     return {k: put(v) for k, v in buf.items()}, put
 
 
-def test_shard_plan_invariants():
-    """Extended-grid geometry: cap granularity, slot ordering (core
-    first), stencil ids in range, per-axis cell widths >= rlist."""
-    for shape in [(1, 1, 1), (2, 2, 2), (4, 1, 1), (2, 2, 1)]:
-        cp = plan_shard_cells([9.4, 9.4, 9.4], shape, 1.1, 0.4, 6173)
-        assert cp.cap % 32 == 0
-        assert cp.n_prog == int(np.prod(cp.ncore))
-        n_halo = int(np.prod(cp.next3)) - cp.n_prog
-        assert cp.n_slot == cp.n_prog + n_halo + 1
-        st = cp.stencil_packed.reshape(cp.n_prog, 14, 4)
-        assert st[:, :, 0].min() >= 0
-        assert st[:, :, 0].max() <= cp.sentinel_cell
-        for a in range(3):
-            w = 9.4 / (shape[a] * cp.ncore[a])
-            assert w >= cp.rlist - 1e-9
-        # slot map is a bijection ext-cells <-> slots[0:n_slot-1]
-        assert len(np.unique(cp.ext2slot)) == int(np.prod(cp.next3))
-        # 1-device mesh: fully periodic, no halo cells, matches the
-        # single-chip plan_lanes geometry
-        if shape == (1, 1, 1):
-            from ddcmd_tpu.ops.pallas_cellpair import plan_lanes
+def _pool_grid(L, rcut, skin, n, plan):
+    return CellGrid.plan([L] * 3, rcut, skin, n,
+                         plan.local_cap + plan.ghost_cap)
 
-            g = plan_lanes([9.4, 9.4, 9.4], 1.1, 0.4, 6173)
-            assert cp.ncore == g.ncells and cp.cap == g.cap
-            assert cp.n_slot == cp.n_prog + 1
+
+@pytest.mark.parametrize("engine,kw,dtype,expect", [
+    ("auto", {}, "f32", "nlist"),                     # CPU: no kernel
+    ("auto", {"interpret": True}, "f32", "pallas"),
+    ("pallas", {"interpret": True}, "f32", "pallas"),
+    ("nlist", {"interpret": True}, "f32", "nlist"),
+    ("auto", {"interpret": True}, "f64", "nlist"),    # kernel is f32
+    ("pallas", {}, "f32", ValueError),                # needs a GPU
+    ("pallas", {"interpret": True}, "f64", ValueError),
+])
+def test_shard_engine_routing(tmp_path, engine, kw, dtype, expect):
+    """ParallelSimulation's per-device engine: the kernel where it runs
+    (a GPU, or interpret mode in tests), nlist otherwise; an explicit
+    request that cannot be honoured raises."""
+    from ddcmd_tpu.models import lj_fluid, load
+    from ddcmd_tpu.run.parallel_sim import ParallelSimulation
+
+    lj_fluid(str(tmp_path), n=400)
+    db, base = load(str(tmp_path))
+    dt = jnp.float64 if dtype == "f64" else jnp.float32
+    if expect is ValueError:
+        with pytest.raises(ValueError):
+            ParallelSimulation(db, base, shape=(1, 1, 1), dtype=dt,
+                               engine=engine, **kw)
+        return
+    psim = ParallelSimulation(db, base, shape=(1, 1, 1), dtype=dt,
+                              engine=engine, **kw)
+    assert psim.shard_engine == expect
 
 
 def test_halo_routing_refresh_and_reduce():
@@ -140,11 +144,11 @@ def test_pallas_shard_forces_match_single_device():
         fmask, nbr, Lv, tables)
 
     mesh = make_brick_mesh(SHAPE)
-    cplan = plan_shard_cells([L] * 3, SHAPE, rcut, skin, n)
+    grid = _pool_grid(L, rcut, skin, n, plan)
     coeffs = GroupTable.build(
         [Group(name="free", index=0, type="FREE")]).coefficients(0.0, 0.01)
     step_fn, first_fn, migrate_fn = make_brick_step_pallas(
-        mesh, plan, cplan, tables, coeffs, dt=0.02, box_lengths=[L] * 3,
+        mesh, plan, grid, tables, coeffs, dt=0.02, box_lengths=[L] * 3,
         species_lj_type=np.array([0, 1], dtype=np.int32), n_global=n,
         coulomb=True, interpret=True)
 
@@ -172,16 +176,18 @@ def test_pallas_shard_steps_and_migrates():
 
     arrays, L, rcut, skin, tables, plan, n = _setup()
     mesh = make_brick_mesh(SHAPE)
-    cplan = plan_shard_cells([L] * 3, SHAPE, rcut, skin, n)
-    grid = CellGrid.plan([L] * 3, rcut, skin, n,
-                         plan.local_cap + plan.ghost_cap)
+    grid = _pool_grid(L, rcut, skin, n, plan)
     coeffs = GroupTable.build(
         [Group(name="t", index=0, type="LANGEVIN", Teq=lambda t: 300.0,
                tau=1.0)]).coefficients(0.0, 0.01)
     tmap = np.array([0, 1], dtype=np.int32)
-    kw = dict(dt=0.02, box_lengths=[L] * 3, species_lj_type=tmap,
+    # dt=0.01: at 0.02 the overlapping start relaxes through e_pot ~ 0
+    # inside the chunk, where two float32 engines that round differently
+    # (the kernel's TwoSum min-image) part by more than a 1-ulp input
+    # perturbation moves either one
+    kw = dict(dt=0.01, box_lengths=[L] * 3, species_lj_type=tmap,
               n_global=n, chunk_steps=5)
-    out_p = make_brick_step_pallas(mesh, plan, cplan, tables, coeffs,
+    out_p = make_brick_step_pallas(mesh, plan, grid, tables, coeffs,
                                    coulomb=True, interpret=True, **kw)
     out_n = make_brick_step(mesh, plan, grid, tables, coeffs, **kw)
 
@@ -210,8 +216,8 @@ def test_pallas_shard_steps_and_migrates():
 
 @pytest.mark.slow
 def test_pallas_shard_waterbox_deck(waterbox_dir):
-    """The real waterbox deck (NGLFCONSTRAINT + barostat) through
-    ParallelSimulation's auto-selected pallas shard engine: first energy
+    """The waterbox deck (NGLFCONSTRAINT + barostat) through
+    ParallelSimulation's pallas shard engine: first energy
     matches the nlist engine, the NPT chunk runs and moves the box."""
     from ddcmd_tpu.run.cli import load_db
     from ddcmd_tpu.run.parallel_sim import ParallelSimulation
@@ -221,18 +227,15 @@ def test_pallas_shard_waterbox_deck(waterbox_dir):
                        str(waterbox_dir / "snapshot.mem" / "restart"),
                        str(waterbox_dir))
 
-    os.environ.pop("DDCMD_SHARD_ENGINE", None)
-    ps = ParallelSimulation(load(), str(waterbox_dir), shape=(2, 2, 2))
+    ps = ParallelSimulation(load(), str(waterbox_dir), shape=(2, 2, 2),
+                            engine="pallas", interpret=True)
     assert ps.shard_engine == "pallas"
     e_p = ps.first_energy()
 
-    os.environ["DDCMD_SHARD_ENGINE"] = "nlist"
-    try:
-        ps2 = ParallelSimulation(load(), str(waterbox_dir), shape=(2, 2, 2))
-        assert ps2.shard_engine == "nlist"
-        e_n = ps2.first_energy()
-    finally:
-        os.environ.pop("DDCMD_SHARD_ENGINE", None)
+    ps2 = ParallelSimulation(load(), str(waterbox_dir), shape=(2, 2, 2),
+                             engine="nlist")
+    assert ps2.shard_engine == "nlist"
+    e_n = ps2.first_energy()
     assert e_p == pytest.approx(e_n, rel=2e-5, abs=0.5)
 
     v0 = float(jnp.prod(ps.Lv))
@@ -322,7 +325,8 @@ def test_pallas_shard_inkernel_exclusions(tmp_path):
     d = str(tmp_path)
     martini_bilayer(d, nx=8, ny=8, water_nm=1.2)
     db, base = load(d)
-    psim = ParallelSimulation(db, base, shape=(2, 2, 2))
+    psim = ParallelSimulation(db, base, shape=(2, 2, 2), engine="pallas",
+                              interpret=True)
     assert psim.shard_engine == "pallas"
     assert psim._excl_vals is not None
     e_par = psim.first_energy()
@@ -337,9 +341,8 @@ def test_pallas_shard_inkernel_exclusions(tmp_path):
 
 def test_pallas_shard_walls_forces_match_single_device():
     """Load-balanced (non-uniform tensor walls) bricks under the pallas
-    shard engine: first forces/energy match the single-device reference
-    (the r5 walls feature -- brick-normalized static tables + traced
-    per-device (center, span))."""
+    shard engine: first forces/energy match the single-device
+    reference."""
     arrays, L, rcut, skin, tables, _plan, n = _setup(L=8.0)
     rlist = rcut + skin
     # skewed but feasible walls on x and y (>= 2*rlist per brick on
@@ -364,15 +367,11 @@ def test_pallas_shard_walls_forces_match_single_device():
         fmask, nbr, Lv, tables)
 
     mesh = make_brick_mesh(SHAPE)
-    cplan = plan_shard_cells([L] * 3, SHAPE, rcut, skin, n, walls=walls)
-    # ncore planned from the NARROWEST brick: its cells clear rlist
-    sfmin = np.array([0.42, 0.42, 0.5])
-    for a in range(3):
-        assert sfmin[a] * L / cplan.ncore[a] >= cplan.rlist - 1e-9
+    grid = _pool_grid(L, rcut, skin, n, plan)
     coeffs = GroupTable.build(
         [Group(name="free", index=0, type="FREE")]).coefficients(0.0, 0.01)
     step_fn, first_fn, migrate_fn = make_brick_step_pallas(
-        mesh, plan, cplan, tables, coeffs, dt=0.02, box_lengths=[L] * 3,
+        mesh, plan, grid, tables, coeffs, dt=0.02, box_lengths=[L] * 3,
         species_lj_type=np.array([0, 1], dtype=np.int32), n_global=n,
         coulomb=True, interpret=True)
 
@@ -396,7 +395,7 @@ def test_pallas_shard_walls_forces_match_single_device():
               species_lj_type=np.array([0, 1], np.int32),
               n_global=n, chunk_steps=4)
     step2, first2, migrate2, chunk2 = make_brick_step_pallas(
-        mesh, plan, cplan, tables, coeffs, coulomb=True, interpret=True,
+        mesh, plan, grid, tables, coeffs, coulomb=True, interpret=True,
         **kw)
     f0, e0, _, ov0 = first2(fields, maskd, jax.random.PRNGKey(1))
     assert int(ov0) == 0
@@ -405,47 +404,6 @@ def test_pallas_shard_walls_forces_match_single_device():
     assert int(ovc) == 0
     assert np.isfinite(np.asarray(scal)).all()
     assert int(np.asarray(maskd).sum()) == n
-
-
-def test_pallas_shard_eam_matches_single_device(tmp_path, monkeypatch):
-    """Sharded two-pass pallas EAM (rho reduce -> embedding -> dF
-    refresh -> force pass) == the single-chip nlist EAM evaluation on
-    the FCC Cu fixture (r5: VERDICT item 4; eam.c:39-44 2-pass comm)."""
-    from ddcmd_tpu.models import eam_crystal, load
-    from ddcmd_tpu.run.parallel_sim import ParallelSimulation
-    from ddcmd_tpu.run.simulate import Simulation
-
-    d = str(tmp_path)
-    eam_crystal(d, nc=8)
-    db, base = load(d)
-    monkeypatch.setenv("DDCMD_SHARD_ENGINE", "pallas")
-    psim = ParallelSimulation(db, base, shape=(2, 2, 2))
-    assert psim.shard_engine == "pallas"
-    assert psim.force_kind == "eam"
-    e_par = psim.first_energy()
-
-    db1, _ = load(d)
-    sim = Simulation(db1, base, run_dir=d, engine="nlist")
-    sim.first_energy()
-    e_single = float(sim.ss.energy.eion)
-    rel = abs(e_par - e_single) / max(abs(e_single), 1.0)
-    assert rel < 2e-5, (e_par, e_single, rel)
-    # forces: gather sharded rows by gid and compare
-    f_ref = np.asarray(sim.ss.state.f[:sim.sysdef.state.n_local])
-    m = np.asarray(psim.mask)
-    gp = np.asarray(psim.fields["gid"])[m]
-    g64 = gp[:, 0].astype(np.int64) | (gp[:, 1].astype(np.int64) << 32)
-    f_sh = np.asarray(psim.f)[m]
-    order = np.argsort(g64)
-    scale = max(1e-9, np.abs(f_ref).max())
-    col = np.asarray(psim.sysdef.collection.gid, dtype=np.int64)
-    corder = np.argsort(col, kind="stable")
-    assert np.abs(f_sh[order] - f_ref[corder]).max() / scale < 5e-5
-
-    # dynamics: one chunk, finite scalars, particle conservation
-    psim.run(psim.chunk_steps, print_fn=lambda s: None)
-    assert np.isfinite(np.asarray(psim.f)[np.asarray(psim.mask)]).all()
-    assert int(np.asarray(psim.mask).sum()) == sim.sysdef.state.n_local
 
 
 def test_sharded_batched_bonded_matches_per_term(tmp_path, monkeypatch):
@@ -462,7 +420,8 @@ def test_sharded_batched_bonded_matches_per_term(tmp_path, monkeypatch):
     for mode in ("1", "0"):
         monkeypatch.setenv("DDCMD_BONDED_BATCH", mode)
         db, base = load(d)
-        psim = ParallelSimulation(db, base, shape=(2, 2, 2))
+        psim = ParallelSimulation(db, base, shape=(2, 2, 2),
+                                  engine="pallas", interpret=True)
         assert psim.shard_engine == "pallas"
         if mode == "1":
             assert "__batched__" in psim._step_kwargs["bonded_tables"]
@@ -487,7 +446,8 @@ def test_sharded_batched_constraints_match_generic(tmp_path, monkeypatch):
     for mode in ("1", "0"):
         monkeypatch.setenv("DDCMD_CONS_BATCH", mode)
         db, base = load(d)
-        psim = ParallelSimulation(db, base, shape=(2, 2, 2))
+        psim = ParallelSimulation(db, base, shape=(2, 2, 2),
+                                  engine="pallas", interpret=True)
         assert psim.shard_engine == "pallas"
         if mode == "1":
             assert "templates" in psim._step_kwargs["constraint_tables"]

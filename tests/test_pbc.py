@@ -1,7 +1,7 @@
 """Non-periodic boundaries (pbc < 7): slab/wire/cluster systems.
 
 The reference treats box pbc bits as first-class (preduce.c:42-45,
-box.c pbc masks); these tests cover the TPU engines' static stencil
+box.c pbc masks); these tests cover the cell engine's static stencil
 allowance masks (ops/cellpair.pbc_allowed), the (N,K) list's dynamic
 crossing mask (nbr/celllist.build_neighbor_list pbc=), and a REFLECT-
 walled slab deck end-to-end (reflect.c walls + pbc=3)."""

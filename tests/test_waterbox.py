@@ -44,7 +44,7 @@ def test_waterbox_nvt_npt_runs(wb_db, waterbox_dir, tmp_path):
 
 
 def test_waterbox_nve_energy_conservation(waterbox_dir):
-    """NVE drift check in f64 (BASELINE.md's matching-energy-drift metric).
+    """NVE drift check in f64 (BASELINE.json's matching-energy-drift metric).
 
     Swap Langevin groups for FREE, disable the barostat, thermalize to
     310K, run 100 x 20fs steps: total energy must be conserved."""
